@@ -1,23 +1,40 @@
-"""Headline benchmark: Ant env-steps/s on one chip @ 4096 envs.
+"""Headline benchmark: Ant env-steps/s on one GPU @ 4096 envs.
 
 Measures the full environment hot path (physics substeps + contact solve +
 observation/reward kernels + masked auto-reset) under one jit, driven by a
 cheap deterministic pseudo-policy so the actions depend on the observations
 (prevents the compiler from hoisting anything).  Matches the reference's
 canonical throughput configuration (Ant, 4096 envs, dt=1/60, 2 substeps —
-cfg/task/Ant.yaml).  Prints ONE JSON line; ``vs_baseline`` is the ratio to the
-1M env-steps/s/chip north-star (BASELINE.md).
+cfg/task/Ant.yaml).  Prints ONE JSON line naming the device it ran on; it
+refuses to run without a GPU rather than report a CPU number.
+
+    python bench.py
 """
 import json
+import subprocess
 import time
 
 import jax
 import jax.numpy as jnp
 
 
-def main():
-    num_envs = 4096
-    steps_per_iter = 200
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60)
+    except (OSError, subprocess.SubprocessError) as e:
+        return f"nvidia-smi unavailable ({e})"
+    return out.stdout.strip() or out.stderr.strip()
+
+
+def ant_throughput(num_envs: int = 4096, steps_per_iter: int = 200,
+                   iters: int = 5) -> dict:
+    """Env-steps/s of ``iters`` timed scans of ``steps_per_iter`` Ant steps
+    after one compile-and-warm-up scan, whose wall time is returned as
+    ``compile_s``."""
     from isaacgymenvs_ma_tpu.tasks.ant import Ant, TASK_CFG
     from isaacgymenvs_ma_tpu.utils.config import deep_merge
 
@@ -41,23 +58,37 @@ def main():
         return state, obs
 
     state = task.initial_state(jax.random.PRNGKey(1))
-    # compile + warmup
+    t0 = time.perf_counter()
     state, obs = run(state)
     jax.block_until_ready(obs)
+    compile_s = time.perf_counter() - t0
 
-    iters = 5
     t0 = time.perf_counter()
     for _ in range(iters):
         state, obs = run(state)
     jax.block_until_ready(obs)
     dt = time.perf_counter() - t0
+    return {"env_steps_per_s": num_envs * steps_per_iter * iters / dt,
+            "compile_s": compile_s,
+            "finite": bool(jnp.all(jnp.isfinite(obs)))}
 
-    steps_per_s = num_envs * steps_per_iter * iters / dt
+
+def main():
+    from isaacgymenvs_ma_tpu.utils.compile_cache import setup_compile_cache
+
+    setup_compile_cache()
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        raise SystemExit(f"bench.py measures a GPU; JAX found {dev.platform}")
+    r = ant_throughput()
     print(json.dumps({
         "metric": "ant_env_steps_per_s_per_chip",
-        "value": round(steps_per_s),
+        "value": r["env_steps_per_s"],
         "unit": "env-steps/s",
-        "vs_baseline": round(steps_per_s / 1_000_000, 4),
+        "compile_s": r["compile_s"],
+        "card": card(),
+        "device": {"platform": dev.platform, "kind": dev.device_kind,
+                   "count": len(jax.devices())},
     }))
 
 

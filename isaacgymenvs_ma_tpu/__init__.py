@@ -1,4 +1,4 @@
-"""isaacgymenvs_ma_tpu — TPU-native rebuild of IsaacGymEnvs-MA.
+"""isaacgymenvs_ma_tpu — JAX rebuild of IsaacGymEnvs-MA.
 
 A from-scratch JAX/XLA framework with the capabilities of
 Xhadow0823/IsaacGymEnvs-MA: batched rigid-body physics, the IsaacGymEnvs task

@@ -18,29 +18,29 @@ hooks (``_collect_aux`` / ``_transform_rewards``) plus a disc phase.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Any, NamedTuple, Optional
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
 
-from .networks import MLP
+from . import nn
 from .ppo import PPOAgent, PPOState, Rollout
 from .running_norm import RunningMeanStd
 
 
+@dataclass(frozen=True)
 class Discriminator(nn.Module):
     """MLP + logit head (amp_network_builder.py:93-117)."""
 
     units: tuple = (1024, 512)
 
-    @nn.compact
-    def __call__(self, amp_obs):
-        x = MLP(self.units, "relu", name="disc_mlp")(amp_obs)
-        return nn.Dense(1, name="disc_logits",
-                        kernel_init=nn.initializers.uniform(scale=1.0))(x).squeeze(-1)
+    def __call__(self, scope, amp_obs):
+        x = nn.mlp(scope.child("disc_mlp"), amp_obs, self.units, "relu")
+        return nn.dense(scope.child("disc_logits"), x, 1,
+                        kernel_init=nn.uniform(1.0)).squeeze(-1)
 
 
 class AMPVars(NamedTuple):

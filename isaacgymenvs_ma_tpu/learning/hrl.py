@@ -4,7 +4,7 @@ step runs ``llc_steps`` of a FROZEN low-level latent-conditioned controller
 (the ASE-style AMP policy), averaging rewards over the sub-steps
 (ref env_step :74-98).
 
-TPU redesign: instead of a host-side loop around ``vec_env.step``
+Batched redesign: instead of a host-side loop around ``vec_env.step``
 (ref :81-86), the wrapper is itself a VecTask: ``step(latents)`` lax.scans
 ``llc_steps`` inner task steps, so the whole hierarchy (HL PPO + LLC
 rollouts) stays one XLA program.  The standard :class:`~.ppo.PPOAgent`
@@ -13,16 +13,17 @@ trains on the wrapper unchanged — ``num_actions`` becomes ``latent_dim``
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Any, NamedTuple, Optional
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from .networks import MLP
+from . import nn
 
 
+@dataclass(frozen=True)
 class LatentConditionedActor(nn.Module):
     """Low-level controller net: (obs, latent) -> action mean
     (hrl_models.ModelHRLContinuous's LLC head)."""
@@ -30,11 +31,10 @@ class LatentConditionedActor(nn.Module):
     num_actions: int
     units: tuple = (1024, 512)
 
-    @nn.compact
-    def __call__(self, obs, latent):
+    def __call__(self, scope, obs, latent):
         x = jnp.concatenate([obs, latent], -1)
-        x = MLP(self.units, "relu", name="llc_mlp")(x)
-        return jnp.tanh(nn.Dense(self.num_actions, name="mu")(x))
+        x = nn.mlp(scope.child("llc_mlp"), x, self.units, "relu")
+        return jnp.tanh(nn.dense(scope.child("mu"), x, self.num_actions))
 
 
 class HRLEnvState(NamedTuple):

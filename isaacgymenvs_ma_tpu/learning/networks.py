@@ -4,41 +4,30 @@ Mirrors the rl_games ``actor_critic`` continuous network the reference trains
 with (``cfg/train/AntPPO.yaml``: shared MLP trunk, ELU, fixed learnable
 log-sigma, mu + value heads).  Configured from the same
 ``params.network`` schema.  bf16 is intentionally not used: these MLPs are
-tiny and f32 keeps the learner bit-stable; the MXU win on TPU comes from the
-large batch dimension.
+tiny and f32 keeps the learner bit-stable.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from dataclasses import dataclass
+from typing import Sequence
 
-import flax.linen as nn
-import jax
 import jax.numpy as jnp
 
-_ACT = {
-    "elu": nn.elu,
-    "relu": nn.relu,
-    "tanh": jnp.tanh,
-    "selu": nn.selu,
-    "swish": nn.swish,
-    "sigmoid": nn.sigmoid,
-    "None": lambda x: x,
-    None: lambda x: x,
-}
+from . import nn
+
+# rl_games' mu head: fan-in truncated normal at 1% of the LeCun variance
+_MU_INIT = nn.variance_scaling(0.01, "fan_in", "truncated_normal")
 
 
-class MLP(nn.Module):
-    units: Sequence[int]
-    activation: str = "elu"
-
-    @nn.compact
-    def __call__(self, x):
-        act = _ACT[self.activation]
-        for u in self.units:
-            x = act(nn.Dense(u)(x))
-        return x
+def _log_sigma(scope, fixed_sigma, sigma_init, trunk, mu, num_actions):
+    if fixed_sigma:
+        log_sigma = scope.param("log_sigma", nn.constant(sigma_init),
+                                (num_actions,))
+        return jnp.broadcast_to(log_sigma, mu.shape)
+    return nn.dense(scope.child("sigma"), trunk, num_actions)
 
 
+@dataclass(frozen=True)
 class ActorCritic(nn.Module):
     """Continuous-action actor-critic with optional separate critic trunk."""
 
@@ -50,42 +39,26 @@ class ActorCritic(nn.Module):
     sigma_init: float = 0.0
     value_size: int = 1
 
-    @nn.compact
-    def __call__(self, obs):
-        trunk = MLP(self.units, self.activation, name="actor_mlp")(obs)
-        mu = nn.Dense(self.num_actions, name="mu",
-                      kernel_init=nn.initializers.variance_scaling(
-                          0.01, "fan_in", "truncated_normal"))(trunk)
+    def __call__(self, scope, obs):
+        trunk = nn.mlp(scope.child("actor_mlp"), obs, self.units,
+                       self.activation)
+        mu = nn.dense(scope.child("mu"), trunk, self.num_actions,
+                      kernel_init=_MU_INIT)
         if self.separate:
-            vtrunk = MLP(self.units, self.activation, name="critic_mlp")(obs)
+            vtrunk = nn.mlp(scope.child("critic_mlp"), obs, self.units,
+                            self.activation)
         else:
             vtrunk = trunk
-        value = nn.Dense(self.value_size, name="value")(vtrunk)
-        if self.fixed_sigma:
-            log_sigma = self.param(
-                "log_sigma", nn.initializers.constant(self.sigma_init),
-                (self.num_actions,))
-            log_sigma = jnp.broadcast_to(log_sigma, mu.shape)
-        else:
-            log_sigma = nn.Dense(self.num_actions, name="sigma")(trunk)
+        value = nn.dense(scope.child("value"), vtrunk, self.value_size)
+        log_sigma = _log_sigma(scope, self.fixed_sigma, self.sigma_init,
+                               trunk, mu, self.num_actions)
         return mu, log_sigma, value.squeeze(-1)
 
 
-class CentralValueNet(nn.Module):
-    """Asymmetric critic on privileged states (rl_games central_value_config,
-    cfg/train/ShadowHandPPOAsymm.yaml:73-88)."""
-
-    units: Sequence[int] = (256, 128)
-    activation: str = "elu"
-
-    @nn.compact
-    def __call__(self, states):
-        x = MLP(self.units, self.activation, name="cv_mlp")(states)
-        return nn.Dense(1, name="value")(x).squeeze(-1)
-
-
+@dataclass(frozen=True)
 class AsymActorCritic(nn.Module):
-    """Actor on obs + central-value critic on privileged states."""
+    """Actor on obs + central-value critic on privileged states (rl_games
+    central_value_config, cfg/train/ShadowHandPPOAsymm.yaml:73-88)."""
 
     num_actions: int
     units: Sequence[int] = (256, 128, 64)
@@ -94,21 +67,16 @@ class AsymActorCritic(nn.Module):
     fixed_sigma: bool = True
     sigma_init: float = 0.0
 
-    @nn.compact
-    def __call__(self, obs, states):
-        trunk = MLP(self.units, self.activation, name="actor_mlp")(obs)
-        mu = nn.Dense(self.num_actions, name="mu",
-                      kernel_init=nn.initializers.variance_scaling(
-                          0.01, "fan_in", "truncated_normal"))(trunk)
-        if self.fixed_sigma:
-            log_sigma = self.param(
-                "log_sigma", nn.initializers.constant(self.sigma_init),
-                (self.num_actions,))
-            log_sigma = jnp.broadcast_to(log_sigma, mu.shape)
-        else:
-            log_sigma = nn.Dense(self.num_actions, name="sigma")(trunk)
-        vtrunk = MLP(self.cv_units, self.activation, name="critic_mlp")(states)
-        value = nn.Dense(1, name="value")(vtrunk)
+    def __call__(self, scope, obs, states):
+        trunk = nn.mlp(scope.child("actor_mlp"), obs, self.units,
+                       self.activation)
+        mu = nn.dense(scope.child("mu"), trunk, self.num_actions,
+                      kernel_init=_MU_INIT)
+        log_sigma = _log_sigma(scope, self.fixed_sigma, self.sigma_init,
+                               trunk, mu, self.num_actions)
+        vtrunk = nn.mlp(scope.child("critic_mlp"), states, self.cv_units,
+                        self.activation)
+        value = nn.dense(scope.child("value"), vtrunk, 1)
         return mu, log_sigma, value.squeeze(-1)
 
 
@@ -147,6 +115,7 @@ def gaussian_kl(mu0, log_s0, mu1, log_s1):
         log_s1 - log_s0 + (v0 + jnp.square(mu0 - mu1)) / (2.0 * v1) - 0.5, axis=-1)
 
 
+@dataclass(frozen=True)
 class ActorCriticLSTM(nn.Module):
     """MLP trunk -> LSTM -> heads (rl_games ``rnn: {name: lstm}`` networks,
     e.g. cfg/train/ShadowHandPPOLSTM; trained with seq_len truncated BPTT)."""
@@ -158,23 +127,15 @@ class ActorCriticLSTM(nn.Module):
     fixed_sigma: bool = True
     sigma_init: float = 0.0
 
-    @nn.compact
-    def __call__(self, obs, carry):
+    def __call__(self, scope, obs, carry):
         """obs (B, obs_dim), carry = (h, c) each (B, lstm_units)."""
-        x = MLP(self.units, self.activation, name="actor_mlp")(obs)
-        cell = nn.OptimizedLSTMCell(self.lstm_units, name="lstm")
-        (c, h), y = cell((carry[1], carry[0]), x)
-        mu = nn.Dense(self.num_actions, name="mu",
-                      kernel_init=nn.initializers.variance_scaling(
-                          0.01, "fan_in", "truncated_normal"))(y)
-        value = nn.Dense(1, name="value")(y).squeeze(-1)
-        if self.fixed_sigma:
-            log_sigma = self.param(
-                "log_sigma", nn.initializers.constant(self.sigma_init),
-                (self.num_actions,))
-            log_sigma = jnp.broadcast_to(log_sigma, mu.shape)
-        else:
-            log_sigma = nn.Dense(self.num_actions, name="sigma")(y)
+        x = nn.mlp(scope.child("actor_mlp"), obs, self.units, self.activation)
+        (c, h), y = nn.lstm_cell(scope.child("lstm"), (carry[1], carry[0]), x)
+        mu = nn.dense(scope.child("mu"), y, self.num_actions,
+                      kernel_init=_MU_INIT)
+        value = nn.dense(scope.child("value"), y, 1).squeeze(-1)
+        log_sigma = _log_sigma(scope, self.fixed_sigma, self.sigma_init,
+                               y, mu, self.num_actions)
         return mu, log_sigma, value, (h, c)
 
     def initial_carry(self, batch: int):

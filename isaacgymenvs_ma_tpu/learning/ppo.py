@@ -1,7 +1,7 @@
 """PPO learner — the rl_games ``a2c_continuous`` equivalent, fully jitted.
 
 Re-implements the training semantics the reference gets from external
-rl_games >= 1.6 (SURVEY.md §2.4) the TPU way: the entire epoch — horizon
+rl_games >= 1.6 (SURVEY.md §2.4) as one program: the entire epoch — horizon
 rollout (policy forward + env step), GAE, minibatched SGD with adaptive-KL LR
 — is ONE jitted function ``train_epoch``; the host loop only logs.  Matching
 features:

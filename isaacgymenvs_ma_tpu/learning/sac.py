@@ -10,41 +10,43 @@ updates.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Any, NamedTuple, Optional
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
 
-from .networks import MLP
+from . import nn
 from .running_norm import RunningMeanStd
 
 
+@dataclass(frozen=True)
 class TanhGaussianActor(nn.Module):
     num_actions: int
     units: tuple = (256, 128, 64)
     log_std_bounds: tuple = (-5.0, 2.0)
 
-    @nn.compact
-    def __call__(self, obs):
-        x = MLP(self.units, "relu", name="actor_mlp")(obs)
-        mu = nn.Dense(self.num_actions, name="mu")(x)
-        log_std = nn.Dense(self.num_actions, name="log_std")(x)
+    def __call__(self, scope, obs):
+        x = nn.mlp(scope.child("actor_mlp"), obs, self.units, "relu")
+        mu = nn.dense(scope.child("mu"), x, self.num_actions)
+        log_std = nn.dense(scope.child("log_std"), x, self.num_actions)
         lo, hi = self.log_std_bounds
         log_std = lo + 0.5 * (hi - lo) * (jnp.tanh(log_std) + 1.0)
         return mu, log_std
 
 
+@dataclass(frozen=True)
 class TwinQ(nn.Module):
     units: tuple = (256, 128, 64)
 
-    @nn.compact
-    def __call__(self, obs, act):
+    def __call__(self, scope, obs, act):
         x = jnp.concatenate([obs, act], -1)
-        q1 = nn.Dense(1, name="q1_out")(MLP(self.units, "relu", name="q1")(x))
-        q2 = nn.Dense(1, name="q2_out")(MLP(self.units, "relu", name="q2")(x))
+        q1 = nn.dense(scope.child("q1_out"),
+                      nn.mlp(scope.child("q1"), x, self.units, "relu"), 1)
+        q2 = nn.dense(scope.child("q2_out"),
+                      nn.mlp(scope.child("q2"), x, self.units, "relu"), 1)
         return q1.squeeze(-1), q2.squeeze(-1)
 
 

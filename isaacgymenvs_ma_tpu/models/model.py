@@ -1,4 +1,4 @@
-"""Static articulation/scene description for the TPU physics core.
+"""Static articulation/scene description for the batched physics core.
 
 This is the replacement for the reference's asset pipeline
 (``gym.load_asset`` + ``create_actor`` loops, e.g. ``tasks/ant.py:140-197``):
@@ -29,7 +29,7 @@ FREE, HINGE, SLIDE, FIXED, SCREW = 0, 1, 2, 3, 4
 # geom types
 GEOM_SPHERE, GEOM_CAPSULE, GEOM_BOX, GEOM_PLANE, GEOM_CYLINDER = 0, 1, 2, 3, 4
 # mesh shape represented by a baked signed-distance voxel grid (the
-# TPU-native analog of PhysX SDF collisions, docs/factory.md §Collisions;
+# batched analog of PhysX SDF collisions, docs/factory.md §Collisions;
 # grids are baked by native/sdf_voxelize.cpp at build time)
 GEOM_SDF = 5
 # dof drive modes (mirror gymapi.DOF_MODE_*, set via dof props as in
@@ -37,7 +37,7 @@ GEOM_SDF = 5
 DRIVE_NONE, DRIVE_POS, DRIVE_VEL, DRIVE_EFFORT = 0, 1, 2, 3
 
 # SCREW: 1-dof helical joint (rotation about the axis + coupled translation
-# axis * pitch/(2*pi) per radian) — the TPU-native stand-in for the Factory
+# axis * pitch/(2*pi) per radian) — the batched stand-in for the Factory
 # nut-on-bolt thread constraint (docs/factory.md SDF thread collisions)
 _NQ = {FREE: 7, HINGE: 1, SLIDE: 1, FIXED: 0, SCREW: 1}
 _NV = {FREE: 6, HINGE: 1, SLIDE: 1, FIXED: 0, SCREW: 1}

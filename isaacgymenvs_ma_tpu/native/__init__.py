@@ -4,7 +4,7 @@ The reference's native surface is external binaries (PhysX, Warp, pysdf —
 SURVEY.md §2.5); ours is small, build-time-only C++ compiled on demand with
 the system toolchain and loaded via ctypes.  Nothing here runs in the jitted
 hot path — native code prepares static arrays (SDF voxel grids) that XLA
-kernels then consume on-TPU.
+kernels then consume on the device.
 
 Every native entry point has a pure-NumPy fallback so the package works
 without a compiler (slower grid builds only).
@@ -30,7 +30,7 @@ def _build_lib() -> Optional[str]:
     with open(_SRC, "rb") as f:
         tag = hashlib.sha256(f.read()).hexdigest()[:16]
     cache = os.path.join(tempfile.gettempdir(),
-                         f"igma_tpu_sdf_{tag}_{os.getuid()}.so")
+                         f"igma_sdf_{tag}_{os.getuid()}.so")
     if os.path.exists(cache):
         return cache
     tmp = cache + f".build{os.getpid()}"
@@ -162,7 +162,7 @@ def voxelize_mesh(verts: np.ndarray, tris: np.ndarray, origin, spacing,
     for a in (verts, tris, origin, spacing, dims):
         h.update(a.tobytes())
     cache = os.path.join(tempfile.gettempdir(),
-                         f"igma_tpu_sdfgrid_{h.hexdigest()[:20]}_{os.getuid()}.npy")
+                         f"igma_sdfgrid_{h.hexdigest()[:20]}_{os.getuid()}.npy")
     if os.path.exists(cache):
         try:
             g = np.load(cache)
@@ -199,7 +199,7 @@ def voxelize_mesh(verts: np.ndarray, tris: np.ndarray, origin, spacing,
 def query_mesh_sdf(verts: np.ndarray, tris: np.ndarray,
                    pts: np.ndarray) -> np.ndarray:
     """Signed distances of arbitrary points to a mesh (host-side; the
-    on-TPU path samples a precomputed grid instead)."""
+    device path samples a precomputed grid instead)."""
     verts = np.ascontiguousarray(verts, np.float32)
     tris = np.ascontiguousarray(tris, np.int32)
     pts = np.ascontiguousarray(pts, np.float32)

@@ -1,11 +1,11 @@
 // Native mesh -> signed-distance voxel grid.
 //
-// TPU-native replacement for the reference's mesh-distance stack: PhysX SDF
+// Batched-JAX replacement for the reference's mesh-distance stack: PhysX SDF
 // collisions (docs/factory.md "SDF-Based Collisions"), NVIDIA Warp mesh
 // queries (industreal_algo_utils.py:49-157 SAPU) and pysdf/trimesh SDF
 // rewards (industreal_algo_utils.py:202-283).  Grids are computed offline at
-// scene-build time by this library, then sampled on-TPU with a trilinear
-// pallas/XLA kernel (physics/sdf_grid.py) — the hot path never touches the
+// scene-build time by this library, then sampled on the device with a trilinear
+// XLA kernel (physics/sdf_grid.py) — the hot path never touches the
 // mesh.
 //
 // Distance: exact point-triangle distance (Ericson, Real-Time Collision

@@ -1,6 +1,6 @@
 """Batched quaternion / transform / scaling math kernels (JAX).
 
-TPU-native re-implementation of the math-kernel surface of the reference's
+Batched JAX re-implementation of the math-kernel surface of the reference's
 ``isaacgymenvs/utils/torch_jit_utils.py`` (quaternion algebra :42-174, euler
 conversions :176-214, scaling :234-246, locomotion helpers :248-290,
 manipulation helpers :292-351, ``quat_diff_rad`` :354).  Same conventions:

@@ -2,7 +2,7 @@
 
 The reference seeds a global torch generator (``utils/utils.py:87-115``,
 rank-offset, ``seed=-1`` -> random) and draws with ``torch.rand`` /
-``torch_rand_float`` (``utils/torch_jit_utils.py:216-229``).  On TPU we thread
+``torch_rand_float`` (``utils/torch_jit_utils.py:216-229``).  Here we thread
 ``jax.random`` keys functionally: every env-state pytree carries a key, resets
 split it, and per-rank offsets come from folding in the process index.
 """

@@ -1,12 +1,12 @@
-"""Device-mesh sharding for pod-scale training (the NCCL/DDP replacement).
+"""Device-mesh sharding for multi-GPU training (the DDP replacement).
 
 The reference scales with one process per GPU via torchrun + rl_games DDP
 (README:165-172, ``rlgames_utils.py:89-107``): each rank owns its own sim and
-NCCL all-reduces gradients.  The TPU-native design instead shards the SINGLE
+NCCL all-reduces gradients.  This design instead shards the SINGLE
 jitted program over a ``Mesh`` with one ``env`` data axis: env state, rollout
 buffers and episode trackers are sharded over envs; learner parameters,
 optimizer state, and normalizer stats are replicated; XLA inserts the gradient
-psum and the obs-stat reductions over ICI automatically.  Multi-host just
+psum and the obs-stat reductions (NCCL on GPUs) automatically.  Multi-host just
 means ``jax.distributed.initialize()`` + the same mesh over all chips
 (SURVEY.md §2.6/§5-comm).
 """

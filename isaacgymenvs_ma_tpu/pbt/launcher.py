@@ -96,15 +96,42 @@ def pbt_population(task: str, num_policies: int, workspace: str,
     return RunDescription(f"{task}_pbt", exps)
 
 
+def visible_cards() -> List[str]:
+    """GPU ids a worker may be given: ``CUDA_VISIBLE_DEVICES`` when set,
+    else every card ``nvidia-smi`` lists, else none (CPU-only host)."""
+    vis = os.environ.get("CUDA_VISIBLE_DEVICES")
+    if vis is not None:
+        return [c.strip() for c in vis.split(",") if c.strip()]
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=index", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30)
+    except (OSError, subprocess.SubprocessError):
+        return []
+    if out.returncode != 0:
+        return []
+    return [line.strip() for line in out.stdout.splitlines() if line.strip()]
+
+
 def run_processes(run_description: RunDescription, train_dir: str,
                   max_parallel: int = 4, pause_between: float = 1.0,
-                  extra_env: Optional[Dict[str, str]] = None) -> int:
+                  extra_env: Optional[Dict[str, str]] = None,
+                  cards: Optional[Sequence[str]] = None) -> int:
     """OS-multiprocessing backend (run_processes.py:34-140): cap concurrent
     workers, stream each worker's output to its own log file, report
-    failures.  Returns the number of failed processes."""
+    failures.  Returns the number of failed processes.
+
+    A JAX process reserves most of a card's memory when it starts, so each
+    worker gets one card of its own through ``CUDA_VISIBLE_DEVICES`` and at
+    most one worker runs per card.  ``cards`` defaults to
+    :func:`visible_cards`; with no cards, workers share the host."""
     os.makedirs(train_dir, exist_ok=True)
+    cards = list(visible_cards() if cards is None else cards)
+    if cards:
+        max_parallel = min(max_parallel, len(cards))
+    free = list(cards)
     queue = list(run_description.generate_experiments())
-    running: List[Tuple[subprocess.Popen, str]] = []
+    running: List[Tuple[subprocess.Popen, str, Optional[str]]] = []
     failed: List[str] = []
     print(f"launching {len(queue)} workers, max_parallel={max_parallel}")
     while queue or running:
@@ -112,18 +139,24 @@ def run_processes(run_description: RunDescription, train_dir: str,
             cmd, name, env_vars = queue.pop(0)
             log_path = os.path.join(train_dir, f"{name}.log")
             env = dict(os.environ, **env_vars, **(extra_env or {}))
+            card = free.pop(0) if cards else None
+            if card is not None:
+                env["CUDA_VISIBLE_DEVICES"] = card
             log = open(log_path, "ab")
-            print(f"  start {name}: {cmd}  (log: {log_path})")
+            print(f"  start {name}: {cmd}  (card: {card}, log: {log_path})")
             p = subprocess.Popen(cmd.split(" "), stdout=log, stderr=log,
                                  env=env)
-            running.append((p, name))
+            running.append((p, name, card))
             time.sleep(pause_between)
         still = []
-        for p, name in running:
+        for p, name, card in running:
             rc = p.poll()
             if rc is None:
-                still.append((p, name))
-            elif rc != 0:
+                still.append((p, name, card))
+                continue
+            if card is not None:
+                free.append(card)
+            if rc != 0:
                 print(f"  FAILED {name} (exit {rc})")
                 failed.append(name)
             else:

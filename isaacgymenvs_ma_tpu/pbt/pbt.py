@@ -10,7 +10,7 @@ itself from a better policy's checkpoint with mutated hyperparameters
 (os.execv, :123-177).  Faulty/dead members are tolerated via outlier-trimmed
 statistics and best-effort filesystem ops (:400-410; utils/utils.py:43-66).
 
-Backend-agnostic: the shared-filesystem protocol is identical on TPU pods;
+Backend-agnostic: the shared-filesystem protocol is identical on any cluster;
 only rank-0 of each policy's process group participates.
 """
 from __future__ import annotations

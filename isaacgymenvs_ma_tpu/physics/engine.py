@@ -2,7 +2,7 @@
 
 This module replaces the reference's external L0 physics layer (PhysX GPU via
 the ``isaacgym`` binary, imported at ``tasks/base/vec_task.py:37``) with a
-TPU-native design:
+batched JAX design:
 
 * **World-frame joint-space dynamics.**  All spatial quantities (velocities,
   inertias, joint motion subspaces) are expressed about the world origin, so
@@ -38,14 +38,18 @@ import numpy as np
 
 from ..models import model as md
 from ..ops import maths
+from .fk_kernel import fk_motion
 
-# The inertia -> CRBA -> inverse -> Delassus chain cannot run at the MXU's
-# default single-pass bfloat16: the lost mantissa de-positive-definitizes the
-# mass matrix and diverges training (NaNs on Ant within ~75 epochs).  HIGH
-# (3-pass bf16, ~float32-equivalent mantissa for well-scaled operands) is the
-# sweet spot; HIGHEST (6-pass) costs ~2x more for no observed stability gain.
-# Everything else (FK, bias velocity products, readouts) runs at default.
-# Override with IGMA_MATMUL_PRECISION=default|high|highest.
+# Matmul precision tiers.  The inertia -> CRBA -> inverse -> Delassus chain
+# must keep the mass matrix positive definite: at a 1-pass bfloat16 tier it
+# lost definiteness and diverged Ant training.  On an H100, DEFAULT runs
+# float32 products in TF32 (about 11 good bits measured) while HIGH and
+# HIGHEST both give full float32 (about 22 bits) at the same end-to-end
+# speed, so the chain runs at HIGHEST.  The contact-solver matvecs stay at
+# DEFAULT: the sim-health safety net bounds solver drift, while an
+# indefinite mass matrix poisons everything.  PERF.md has the measurement.
+# Override with IGMA_MATMUL_PRECISION / IGMA_SOLVER_PRECISION =
+# default|high|highest.
 import os as _os
 
 _PREC = {
@@ -53,12 +57,7 @@ _PREC = {
     "high": jax.lax.Precision.HIGH,
     "highest": jax.lax.Precision.HIGHEST,
 }
-_HI = _PREC[_os.environ.get("IGMA_MATMUL_PRECISION", "high")]
-# The contact-solver matvecs tolerate a lower tier than the mass-matrix
-# chain: the sim-health safety net bounds solver drift while an indefinite
-# mass matrix poisons everything.  Measured on Ant/TPU with mass-matrix
-# reuse: solver at DEFAULT = 1.135M env-steps/s and the best training curve
-# (2380 @ 120 epochs) vs 1.059M with solver at HIGH — DEFAULT is shipped.
+_HI = _PREC[_os.environ.get("IGMA_MATMUL_PRECISION", "highest")]
 _SOLVER = _PREC[_os.environ.get("IGMA_SOLVER_PRECISION", "default")]
 
 
@@ -89,8 +88,8 @@ class SimParams(NamedTuple):
     # blurs stair risers into one-cell steep ramps, and tilted normals
     # there turn the old ramp-assist into constant lateral shoves near
     # every step edge — a measured terrain-curriculum regression
-    # (runs_r5/anymalterrain.log lvl 2.6@1040 vs r4 ~4.0; stairs 2.2 vs
-    # 4.8).  Kept as an opt-in for stepping-stones experiments.
+    # (curriculum level 2.6 at 1040 epochs vs ~4.0 without it; stairs
+    # 2.2 vs 4.8).  Kept as an opt-in for stepping-stones experiments.
     terrain_normal_frames: bool = False
     plane_friction: float = 1.0
     plane_restitution: float = 0.0
@@ -101,13 +100,9 @@ class SimParams(NamedTuple):
     # evaluate the articulation inertia/mass-matrix chain once per control
     # step and reuse across substeps (PhysX evaluates articulation inertia
     # once per step the same way); the chain drifts O(h*qd) within a step.
-    # Measured on Ant/TPU: 718k -> 1.059M env-steps/s with the BEST training
-    # curve of the precision sweep (BASELINE.md)
+    # On the previous accelerator it was both faster and gave the best Ant
+    # training curve of the precision sweep; not yet re-measured on the GPU
     reuse_mass_matrix: bool = True
-    # route the constraint solve through the fused batch-lane Pallas kernel
-    # (contact_kernel.py).  Default False: on Ant the XLA solve wins (see
-    # contact_kernel routing note in _contact_solve)
-    use_contact_kernel: bool = False
     # PhysX-style mass splitting for the Jacobi iteration: scale each contact
     # row's correction by 1/(active rows sharing its movable bodies).  Plain
     # projected Jacobi diverges once R coincident rows satisfy R*relaxation
@@ -117,11 +112,11 @@ class SimParams(NamedTuple):
     # mesh-cloud tasks (Factory/IndustReal) via sim.physx.mass_splitting
     mass_splitting: bool = False
     # store the loop-invariant contact-row matrices (J, H^-1 J, H^-1) in
-    # bfloat16 inside the solver iteration scan; multiplies already run in
-    # bf16 (DEFAULT precision), accumulation stays f32.  None = auto: on
-    # when rows*nv is large enough for the loop to be HBM-bound (measured
-    # ShadowHand 18.2 -> 13.1 ms/solve), off for small scenes where it is
-    # GEMM-padding-bound instead (measured Ant 4.09M -> 3.97M env-steps/s).
+    # bfloat16 inside the solver iteration scan; accumulation stays f32.
+    # None = auto: on when rows*nv >= 1024, where the loop is bound by
+    # memory traffic (dense hand contacts), off for small scenes.  The
+    # threshold was chosen on the previous accelerator and is not yet
+    # re-measured on the GPU.
     solver_rows_bf16: Optional[bool] = None
     # iterate only the K deepest contact rows per env (active-set compaction,
     # the PhysX contact-buffer analog).  None = all candidate rows.  Exact
@@ -136,18 +131,17 @@ class SimParams(NamedTuple):
     # velocity) through the cached Jacobian (terrain rows re-sample the
     # heightfield at advanced positions), and each substep's impulses warm
     # the next.  O(h*qd) row drift, same order as reuse_mass_matrix.
-    # Default OFF: measured on Ant/TPU it costs training quality (reward
-    # 3763/6279 -> ~2300/5767 at 150 epochs over two seeds — locomotion foot
-    # strikes are sensitive to one-substep-stale row geometry) for +8%
-    # throughput.  Manipulation scenes (persistent grasps, tiny relative
-    # velocities) enable it per task via sim.physx.reuse_contact_rows where
-    # measured faster on TPU v5e: ShadowHand 54.8 -> 40.5 ms/step (+35%),
-    # Trifinger 21.2 -> 14.6 (+46%), FrankaReachMA 39.7 -> 35.2 (+13%).
-    # It LOSES without active-set compaction when the full-row Jacobian
-    # cache is large (AllegroKuka, 34 rows uncompacted: 17.9 -> 21.0 ms —
-    # materializing the cache across the substep boundary costs more HBM
-    # traffic than the fused rebuild), and is neutral when the iteration
-    # loop dominates (Factory @ 16 iterations).
+    # Default OFF: on Ant it cost training quality (reward 3763/6279 ->
+    # ~2300/5767 at 150 epochs over two seeds, found on the previous
+    # accelerator — locomotion foot strikes are sensitive to
+    # one-substep-stale row geometry).  Manipulation scenes (persistent
+    # grasps, tiny relative velocities) enable it per task via
+    # sim.physx.reuse_contact_rows (ShadowHand, Trifinger, FrankaReachMA),
+    # where it was faster on the previous accelerator.  It loses without
+    # active-set compaction when the full-row Jacobian cache is large
+    # (materializing the cache across the substep boundary costs more
+    # memory traffic than the fused rebuild).  None of these speed choices
+    # is re-measured on the GPU yet.
     reuse_contact_rows: bool = False
     # with reuse_contact_rows: seed each later substep's iteration from the
     # previous substep's converged impulses (the PhysX persistent-contact
@@ -213,9 +207,9 @@ def _sweep_inverse_batchlast(M: jax.Array) -> jax.Array:
     """In-place Gauss-Jordan (sweep-operator) inverse on a batch-last matrix
     stack ``M (n, n, B)``.
 
-    Every op is an elementwise mul/sub/select over the B lane dimension — no
-    matmuls, no scatters — so it lowers cleanly both in XLA and inside a
-    Pallas TPU kernel (VPU-only, one HBM round trip).  No pivoting: mass
+    Every op is an elementwise mul/sub/select over the batch dimension — no
+    matmuls, no scatters — so it runs in full float32 whatever the matmul
+    precision, and XLA fuses the unrolled sweep.  No pivoting: mass
     matrices are SPD, so diagonal pivots never vanish."""
     n = M.shape[0]
     i_n1 = jax.lax.broadcasted_iota(jnp.int32, (n, 1), 0)
@@ -234,82 +228,18 @@ def _sweep_inverse_batchlast(M: jax.Array) -> jax.Array:
     return M
 
 
-def _sweep_kernel(h_ref, o_ref):
-    o_ref[...] = _sweep_inverse_batchlast(h_ref[...])
-
-
-def _spd_inverse_pallas(H: jax.Array) -> jax.Array:
-    """Fused batch-lane SPD inverse for TPU: transpose to (n, n, N) so envs
-    ride the 128-lane dimension, run the sweep in one Pallas kernel.  ~31x
-    faster than the Schur-block formulation at (4096, 14, 14) (41 us vs
-    1289 us on v5e — one HBM round trip at copy speed)."""
-    from jax.experimental import pallas as pl
-
-    N, n = H.shape[0], H.shape[-1]
-    # the Mosaic stack for the sweep peaks at ~7x the (n, n, block) payload
-    # (measured: 24.9 MB for (30, 30, 1024) f32); stay under the 16 MB
-    # scoped-vmem limit with margin
-    budget = 14 * 1024 * 1024 // (8 * n * n * 4)
-    block = None
-    for cand in (1024, 512, 256, 128, 64, 32):
-        if N % cand == 0 and cand <= budget:
-            block = cand
-            break
-    if block is None:
-        # nothing fits the budget (very large n): take the smallest dividing
-        # candidate rather than the whole batch, which would be worst of all
-        fits = [c for c in (32, 64, 128, 256, 512, 1024) if N % c == 0]
-        block = fits[0] if fits else N
-    Hb = jnp.transpose(H, (1, 2, 0))
-    out = pl.pallas_call(
-        _sweep_kernel,
-        out_shape=jax.ShapeDtypeStruct(Hb.shape, Hb.dtype),
-        grid=(N // block,),
-        in_specs=[pl.BlockSpec((n, n, block), lambda i: (0, 0, i))],
-        out_specs=pl.BlockSpec((n, n, block), lambda i: (0, 0, i)),
-    )(Hb)
-    return jnp.transpose(out, (2, 0, 1))
-
-
 def spd_inverse(H: jax.Array) -> jax.Array:
-    """Batched SPD matrix inverse.
+    """Batched inverse of symmetric positive definite matrices (..., n, n).
 
-    TPU: single fused Pallas sweep kernel (see _spd_inverse_pallas).
-    Elsewhere (CPU test meshes): recursive 2x2-block Schur complement —
-    ``jnp.linalg.inv`` lowers batched LU on TPU into loop nests that access
-    ~3 GB for a (4096, 14, 14) inverse; the Schur form is ~15 batched small
-    matmuls instead.  H must be symmetric positive definite (mass matrices
-    are)."""
+    The Gauss-Jordan sweep with the batch moved last.  Chosen on an H100
+    over the recursive Schur-complement form, batched LU and Cholesky: the
+    end-to-end Ant step was fastest with it, and it needs no matmul
+    precision setting (PERF.md has the numbers)."""
     n = H.shape[-1]
     if n == 1:
         return 1.0 / H
-    if (jax.default_backend() == "tpu" and H.ndim == 3 and n >= 3
-            and H.dtype == jnp.float32):
-        return _spd_inverse_pallas(H)
-    if n == 2:
-        a = H[..., 0, 0]
-        b = H[..., 0, 1]
-        d = H[..., 1, 1]
-        det = a * d - b * b
-        inv = jnp.stack([
-            jnp.stack([d, -b], -1),
-            jnp.stack([-b, a], -1),
-        ], -2)
-        return inv / det[..., None, None]
-    k = n // 2
-    A = H[..., :k, :k]
-    B = H[..., :k, k:]
-    D = H[..., k:, k:]
-    Ainv = spd_inverse(A)
-    AinvB = _mm(Ainv, B)
-    S = D - _mm(jnp.swapaxes(B, -1, -2), AinvB)
-    Sinv = spd_inverse(S)
-    TL = Ainv + _mm(_mm(AinvB, Sinv), jnp.swapaxes(AinvB, -1, -2))
-    TR = -_mm(AinvB, Sinv)
-    return jnp.concatenate([
-        jnp.concatenate([TL, TR], -1),
-        jnp.concatenate([jnp.swapaxes(TR, -1, -2), Sinv], -1),
-    ], -2)
+    M = jnp.moveaxis(H.reshape((-1, n, n)), 0, -1)          # (n, n, B)
+    return jnp.moveaxis(_sweep_inverse_batchlast(M), -1, 0).reshape(H.shape)
 
 
 class PhysicsEngine:
@@ -548,7 +478,7 @@ class PhysicsEngine:
         self.gravity = f32(params.gravity)
         self.h = params.dt / params.substeps
 
-        # precomputed one-hot selection matrices (gathers lower poorly on TPU)
+        # precomputed one-hot selection matrices (dof -> body, q -> dof)
         eye_nb = np.eye(m.nb, dtype=np.float32)
         self.oh_dof_body = jnp.asarray(eye_nb[np.asarray(m.dof_body)])   # (nv, nb)
         q2d = np.zeros((m.nv, m.nq), np.float32)
@@ -601,8 +531,8 @@ class PhysicsEngine:
     def dof_motion(self, body_x, body_q):
         """Motion subspace S (N, nv, 6) about the world origin: [ang, lin].
 
-        Built as a single stack of per-dof columns in dof order — no scatters
-        (TPU gathers/scatters lower poorly; concatenations fuse)."""
+        Built as a single stack of per-dof columns in dof order — no
+        scatters; the concatenations fuse."""
         N = body_x.shape[0]
         dt = body_x.dtype
         zero3 = jnp.zeros((N, 3), dt)
@@ -713,9 +643,8 @@ class PhysicsEngine:
 
     def mass_matrix(self, S, I_O):
         """CRBA in world coordinates via ancestor-mask einsums: (N, nv, nv)."""
-        # composite inertia: sum of descendants-or-self.  Explicit
-        # dot_generals — einsum lowers these as broadcast-reduce with ~100x
-        # the HBM traffic on TPU.
+        # composite inertia: sum of descendants-or-self, as explicit
+        # dot_generals over the static ancestor mask.
         N = I_O.shape[0]
         I_flat = I_O.reshape(N, self.nb, 36)
         # anc[b, j] I[n, j, :] -> (nb, N, 36) -> (N, nb, 36)
@@ -787,56 +716,31 @@ class PhysicsEngine:
         # dyn_cache: optional (I_O, M, Hinv) from an earlier substep of the
         # same control step.  The mass-matrix chain varies O(h*qd) within a
         # control step, so reusing it (PhysX evaluates articulation inertia
-        # once per step too) halves the HIGH-precision matmul volume;
+        # once per step too) halves the mass-matrix matmul volume;
         # FK / contact geometry / bias force always refresh.
         h = self.h
         N = q.shape[0]
         f32 = q.dtype
 
-        # fused FK + motion-subspace kernel (TPU): the Python-unrolled body
-        # chain cannot fuse across parent dependencies in XLA and paid ~nb
-        # kernel launches per substep (~40% of the HumanoidAMP substep);
-        # one Pallas launch computes both (machine-eps parity, see
-        # tests/test_dyn_kernel.py::test_fk_motion_kernel_parity)
-        from . import dyn_kernel as dk
-        if dk.fk_supports(self, N, f32):
-            body_x, body_q, S = dk.fk_motion_pallas(self, q)
-        else:
-            body_x, body_q = self.fk(q)
-            S = self.dof_motion(body_x, body_q)
+        body_x, body_q, S = fk_motion(self, q)
         shape_scale = None if phys is None else getattr(phys, "shape", None)
 
-        # batch-lane fused dynamics chain (TPU): envs ride the 128-lane minor
-        # dim, tiny body/dof axes unroll — see dyn_kernel.py.  The fallback
-        # XLA path below stays bitwise-identical to the pre-kernel build.
-        use_kernel = dk.supports(self, N, f32)
-        # each path only understands its own cache format (kernel caches are
-        # ("bl", ...)-tagged); a mismatched cache is recomputed, not misread
-        is_bl_cache = (isinstance(dyn_cache, tuple) and len(dyn_cache) == 4
-                       and dyn_cache[0] == "bl")
-        if use_kernel and not is_bl_cache:
-            dyn_cache = None
-        elif not use_kernel and is_bl_cache:
-            dyn_cache = None
-        if not use_kernel:
-            V = self.body_velocities(S, qd)
-            if dyn_cache is None:
-                I_O, com_w = self.spatial_inertia(
-                    body_x, body_q, None if phys is None else phys.mass,
-                    shape_scale)
-                M = self.mass_matrix(S, I_O)
-                C = self.bias_force(S, qd, V, I_O)
-            else:
-                # reused I_O: gravity must come from the FRESH com or every
-                # translating floating base picks up |g|*h*v of torque
-                I_O, M, _ = dyn_cache
-                C = self.bias_force(
-                    S, qd, V, I_O,
-                    f_grav=self.gravity_wrench(
-                        body_x, body_q,
-                        None if phys is None else phys.mass, shape_scale))
+        V = self.body_velocities(S, qd)
+        if dyn_cache is None:
+            I_O, _ = self.spatial_inertia(
+                body_x, body_q, None if phys is None else phys.mass,
+                shape_scale)
+            M = self.mass_matrix(S, I_O)
+            C = self.bias_force(S, qd, V, I_O)
         else:
-            V = C = I_O = M = None
+            # reused I_O: gravity must come from the FRESH com or every
+            # translating floating base picks up |g|*h*v of torque
+            I_O, M, _ = dyn_cache
+            C = self.bias_force(
+                S, qd, V, I_O,
+                f_grav=self.gravity_wrench(
+                    body_x, body_q,
+                    None if phys is None else phys.mass, shape_scale))
 
         # scalar joint coordinates (hinge/slide) for springs, limits, drives
         qpos_dof = q @ self.q_to_dof.T
@@ -875,7 +779,7 @@ class PhysicsEngine:
         tau = ctrl.tau
         # clamp applied efforts like PhysX does
         tau = jnp.clip(tau, -eff_lim, eff_lim)
-        rhs = tau if use_kernel else tau - C
+        rhs = tau - C
         rhs = rhs - k_spring * (qpos_dof + h * qd) - d_damp * qd
         if self.has_dof_friction or jfric is not self.dof_friction:
             # joint dry friction: smooth Coulomb (mu * tanh(qd/v0)); the
@@ -914,8 +818,7 @@ class PhysicsEngine:
             # per-body rigid damping (PhysX linear/angular_damping): force
             # -d_lin*m*v_com at the COM, torque -d_ang*L_world.  Explicit is
             # stable here: max(d)*h ~ 5/120 per substep.
-            Vb = V if V is not None else self.body_velocities(S, qd)
-            w_b, v_O = Vb[..., 0:3], Vb[..., 3:6]
+            w_b, v_O = V[..., 0:3], V[..., 3:6]
             com_w = body_x + maths.quat_apply(body_q, self.com[None])
             v_com = v_O + jnp.cross(w_b, com_w)
             F = -(self.body_damp_lin * self.mass)[None, :, None] * v_com
@@ -932,30 +835,14 @@ class PhysicsEngine:
                 + imp * (h * kd_drive + h * h * kp_drive))
         if self.has_dof_friction or jfric is not self.dof_friction:
             diag = diag + h * jfric / 0.05
-        if use_kernel:
-            rhs = jnp.broadcast_to(rhs, (N, self.nv)).astype(f32)
-            diag_b = jnp.broadcast_to(diag, (N, self.nv)).astype(f32)
-            if dyn_cache is None:
-                qdd, Hinv, cache_out = dk.dyn_forward_pallas(
-                    self, body_x, body_q, S, qd, rhs, diag_b,
-                    None if phys is None else phys.mass, shape_scale)
-            else:
-                qdd = dk.dyn_cached_pallas(
-                    self, S, qd, rhs, dyn_cache,
-                    self.gravity_wrench(
-                        body_x, body_q,
-                        None if phys is None else phys.mass, shape_scale))
-                Hinv = dyn_cache[3]
-                cache_out = dyn_cache
+        if dyn_cache is None:
+            H = M + self._diag_embed(
+                jnp.broadcast_to(diag, (N, self.nv)).astype(f32))
+            Hinv = spd_inverse(H)
         else:
-            if dyn_cache is None:
-                H = M + self._diag_embed(
-                    jnp.broadcast_to(diag, (N, self.nv)).astype(f32))
-                Hinv = spd_inverse(H)
-            else:
-                Hinv = dyn_cache[2]
-            qdd = jnp.einsum("nij,nj->ni", Hinv, rhs, precision=_HI)
-            cache_out = (I_O, M, Hinv)
+            Hinv = dyn_cache[2]
+        qdd = jnp.einsum("nij,nj->ni", Hinv, rhs, precision=_HI)
+        cache_out = (I_O, M, Hinv)
         qd_new = qd + h * qdd
 
         # ---------------- unilateral constraints (contacts + joint limits)
@@ -969,7 +856,7 @@ class PhysicsEngine:
                 qd_new, body_x, body_q, S, Hinv, qpos_dof, terrain,
                 None if phys is None else phys.friction,
                 grab_active=ctrl.grab_active, shape_scale=shape_scale,
-                hinv_bl=cache_out[2] if use_kernel else None, warm=warm,
+                warm=warm,
                 ccache=contact_cache, qd_geom=qd,
                 lo_shift=lo_shift, hi_shift=hi_shift, restitution=restitution)
         else:
@@ -1247,14 +1134,10 @@ class PhysicsEngine:
 
     def _contact_solve(self, qd, body_x, body_q, S, Hinv, qpos_dof, terrain,
                        friction_scale=None, grab_active=None,
-                       shape_scale=None, hinv_bl=None, warm=None,
+                       shape_scale=None, warm=None,
                        ccache=None, qd_geom=None,
                        lo_shift=None, hi_shift=None, restitution=None):
         """Projected-Jacobi impulse solve for plane contacts + joint limits.
-
-        ``hinv_bl``: optional batch-last H^-1 from the dynamics kernel — its
-        presence (plus contact_kernel.supports) routes the solve through the
-        fused batch-lane Pallas kernel; geometry/narrowphase stays here.
 
         ``warm``: optional ``(lam_rows (N, P, 3), lam_lo (N, nv),
         lam_hi (N, nv))`` from the previous step (SimParams.warm_start).
@@ -1273,36 +1156,9 @@ class PhysicsEngine:
         the cache."""
         pr = self.params
         h = self.h
-        from . import contact_kernel as ck
-        from .dyn_kernel import _bl as dk_bl
         n_ground = self.n_ground if self.ground else 0
-        # Iteration-loop fusion: row building and the H^-1 J / Delassus GEMMs
-        # stay in XLA (MXU work, done once per solve); the kernel replaces
-        # only the lax.scan iteration loop, which otherwise re-reads J and
-        # H^-1 J from HBM every iteration.  Interpret-mode tests exercise the
-        # kernel path for parity on CPU.
-        from . import dyn_kernel as dk
-        kernel_on = pr.use_contact_kernel or dk._FORCE_INTERPRET
-        # the experimental fused kernel has no warm-start input; warm scenes
-        # stay on the XLA loop (kernel is default-off anyway).  Mass
-        # splitting is likewise XLA-loop-only.
-        kernel_on = kernel_on and not (warm is not None and pr.warm_start > 0)
-        kernel_on = kernel_on and not pr.mass_splitting
-        # restitution needs the post-J bounce-target lift the kernel lacks
-        kernel_on = kernel_on and restitution is None
-        # terrain-normal frames are not modeled by the fused kernel
-        kernel_on = kernel_on and (terrain is None
-                                   or not pr.terrain_normal_frames)
-        use_kernel = (kernel_on and hinv_bl is not None
-                      and n_ground + self.n_pair_rows > 0
-                      and ck.supports(
-                          self, qd.shape[0], qd.dtype,
-                          n_ground + self.n_pair_rows,
-                          len(self.attractors), len(self.grabs),
-                          bool(self.pairs)))
         # (substeps == 1: nothing to reuse — skip the cache-only gathers)
-        reuse_rows = (pr.reuse_contact_rows and not use_kernel
-                      and pr.substeps > 1)
+        reuse_rows = pr.reuse_contact_rows and pr.substeps > 1
         if ccache is None:
             # ---- ground rows (positions/phis only; Jacobians are built
             # *after* active-set compaction so only the surviving K rows pay
@@ -1444,18 +1300,15 @@ class PhysicsEngine:
 
         def _build_J_flat(p_rows, mk, frames=None):
             """Contact Jacobian, built directly in the flat (N, 3R, nv)
-            layout the solver consumes.  The natural (N, R, nv, 3) stack pads
-            its (nv, 3) minor dims to (8+, 128) vector tiles on TPU — ~42x
-            the payload in HBM traffic — so the three components are built as
-            (N, R, nv) planes instead.
+            layout the solver consumes: the three components are built as
+            (N, R, nv) planes rather than an (N, R, nv, 3) stack with a tiny
+            minor axis.
             ``mk``: dof mask, static (R, nv) or per-env (N, R, nv).
             ``frames``: optional (N, R, 3, 3) row frames (t1, t2, n columns).
             When given, the world planes are combined into ROW-FRAME planes
             right here — pure elementwise combos that fuse into the plane
             build.  Projecting at build time removes the per-iteration
-            3-vector rotations and the (N, R, 3, nv) w_diag reduction, which
-            tiles at ~8 GB/s on TPU (a whole-Jacobian einsum over the size-3
-            axes is even worse: ~N*R tiny batched matmuls — both measured)."""
+            3-vector rotations and the (N, R, 3, nv) w_diag reduction."""
             if mk.ndim == 2:
                 mk = mk[None]
             Sa = S[:, :, 0:3]                                  # (N, nv, 3)
@@ -1478,22 +1331,6 @@ class PhysicsEngine:
                       + frames[..., 2, l][:, :, None] * Jz
                       for l in range(3)]
             return jnp.stack(planes, axis=2).reshape(N, 3 * R, nv)
-
-        if use_kernel:
-            # fused-kernel path: frame-projected (N, P, nv, 3) rows as the
-            # kernel expects (default-off; exercised by interpret-mode tests)
-            J = (jnp.swapaxes(_build_J_flat(p, masks_static)
-                              .reshape(N, P_all, 3, nv), 2, 3)
-                 if P_all else jnp.zeros((N, 0, nv, 3), qd.dtype))
-            if frames_all is not None:
-                J = jnp.einsum("nkvc,nkcl->nkvl", J, frames_all)
-            Np, Pp = J.shape[0], J.shape[1]
-            J_rows = jnp.swapaxes(J, 2, 3).reshape(Np, Pp * 3, nv)
-            HinvJ_rows = jax.lax.dot_general(
-                J_rows, Hinv, (((2,), (1,)), ((0,), (0,))),
-                precision=_SOLVER)
-            HinvJ = jnp.swapaxes(HinvJ_rows.reshape(Np, Pp, 3, nv), 2, 3)
-            w_diag = jnp.maximum(jnp.sum(J * HinvJ, axis=2), 1e-8)
 
         if ccache is None:
             # Active-set compaction (the PhysX generated-contacts /
@@ -1521,16 +1358,17 @@ class PhysicsEngine:
             else:
                 rad_rows = jnp.zeros((N, P_all), qd.dtype) if reuse_rows else None
             K = pr.contact_capacity
-            if K is not None and not use_kernel and P_all > K:
+            if K is not None and P_all > K:
                 _, idx = jax.lax.top_k(-phi, K)                # (N, K)
-                # gather as one-hot GEMMs: XLA lowers batched gather/scatter
-                # HLOs into dynamic-slice loops on TPU (measured 2.6x SLOWER
-                # overall with take_along_axis); a (K, P) selection matmul
-                # rides the MXU
+                # gather as one-hot (K, P) selection GEMMs rather than
+                # take_along_axis (kept from the previous accelerator, where
+                # batched gathers lowered to slow loops; not yet re-measured
+                # against a native gather)
                 sel = (idx[:, :, None] ==
                        jnp.arange(P_all)[None, None, :]).astype(qd.dtype)
                 # HIGHEST: selection by an exact one-hot must not round the
-                # selected f32 values to bf16 (DEFAULT-precision does)
+                # selected f32 values (DEFAULT precision may run the product
+                # in reduced-mantissa arithmetic)
                 take = lambda x: jax.lax.dot_general(
                     sel, x, (((2,), (1,)), ((0,), (0,))),
                     precision=jax.lax.Precision.HIGHEST)
@@ -1541,7 +1379,7 @@ class PhysicsEngine:
                 active = take(active.astype(qd.dtype)) > 0.5
                 p_rows = take(p.reshape(N, P_all, 3))
                 # mask values are exactly 0/+-1 and sel is one-hot: the
-                # gather is exact even with bf16 operand rounding, so the
+                # gather is exact even with reduced-mantissa operands, so the
                 # (N, K, P)x(N, P, nv) GEMM can run single-pass DEFAULT
                 masks_rows = jax.lax.dot_general(
                     sel, jnp.broadcast_to(masks_static[None], (N, P_all, nv)),
@@ -1555,27 +1393,26 @@ class PhysicsEngine:
                     frames_rows = take(
                         frames_rows.reshape(N, P_all, 9)).reshape(N, K, 3, 3)
 
-            R_rows = p_rows.shape[1] if not use_kernel else P_all
-            if not use_kernel:
-                # rows are built pre-projected into their contact frames
-                # (identity for ground rows), so the iteration loop below
-                # needs no per-iteration rotations and w_diag is a clean
-                # minor-dim reduction over the flat layout
-                J_flat = _build_J_flat(p_rows, masks_rows,
-                                       frames_rows)             # (N, 3R, nv)
-                HinvJ_flat = jax.lax.dot_general(
-                    J_flat, Hinv, (((2,), (1,)), ((0,), (0,))),
-                    precision=_SOLVER)                          # (N, 3R, nv)
-                w_diag = self._w_diag(J_flat, HinvJ_flat, N, R_rows, nv)
-                if e_rows is not None:
-                    # restitution bounce target: outgoing normal velocity at
-                    # least e * (impact speed - bounce threshold)
-                    v_n_pre = jax.lax.dot_general(
-                        J_flat, qd, (((2,), (1,)), ((0,), (0,))),
-                        precision=_SOLVER).reshape(N, R_rows, 3)[..., 2]
-                    b_n = jnp.maximum(
-                        b_n, e_rows * jnp.maximum(
-                            -v_n_pre - pr.bounce_threshold_velocity, 0.0))
+            R_rows = p_rows.shape[1]
+            # rows are built pre-projected into their contact frames
+            # (identity for ground rows), so the iteration loop below
+            # needs no per-iteration rotations and w_diag is a clean
+            # minor-dim reduction over the flat layout
+            J_flat = _build_J_flat(p_rows, masks_rows,
+                                   frames_rows)             # (N, 3R, nv)
+            HinvJ_flat = jax.lax.dot_general(
+                J_flat, Hinv, (((2,), (1,)), ((0,), (0,))),
+                precision=_SOLVER)                          # (N, 3R, nv)
+            w_diag = self._w_diag(J_flat, HinvJ_flat, N, R_rows, nv)
+            if e_rows is not None:
+                # restitution bounce target: outgoing normal velocity at
+                # least e * (impact speed - bounce threshold)
+                v_n_pre = jax.lax.dot_general(
+                    J_flat, qd, (((2,), (1,)), ((0,), (0,))),
+                    precision=_SOLVER).reshape(N, R_rows, 3)[..., 2]
+                b_n = jnp.maximum(
+                    b_n, e_rows * jnp.maximum(
+                        -v_n_pre - pr.bounce_threshold_velocity, 0.0))
             lam = jnp.zeros((N, R_rows, 3), qd.dtype)
             lam_lo = jnp.zeros_like(qd)
             lam_hi = jnp.zeros_like(qd)
@@ -1650,7 +1487,7 @@ class PhysicsEngine:
                 lam_hi = jnp.zeros_like(qd)
 
         if self.grabs:
-            g_J, g_b, g_pts = [], [], []
+            g_J, g_b = [], []
             S_ang_g = S[:, None, :, 0:3]
             S_lin_g = S[:, None, :, 3:6]
             for g in self.grabs:
@@ -1662,10 +1499,8 @@ class PhysicsEngine:
                 Jg = (S_lin_g + _cross(S_ang_g, pm[:, :, None, :])) \
                     * g["mask"][None, None, :, None]
                 g_J.append(Jg)
-                g_pts.append(pm)
                 g_b.append(-pr.baumgarte / h * (pa - pb))
             g_J = jnp.concatenate(g_J, 1)                      # (N, G, nv, 3)
-            g_pts = jnp.concatenate(g_pts, 1)                  # (N, G, 3)
             g_b = jnp.concatenate(g_b, 1)
             Ng, Gg = g_J.shape[0], g_J.shape[1]
             gJ_rows = jnp.swapaxes(g_J, 2, 3).reshape(Ng, Gg * 3, self.nv)
@@ -1682,7 +1517,7 @@ class PhysicsEngine:
             g_J = g_HJ = g_W = g_b = g_act = lam_g = None
 
         if self.attractors:
-            att_J, att_b, att_pts = [], [], []
+            att_J, att_b = [], []
             S_ang = S[:, None, :, 0:3]
             S_lin = S[:, None, :, 3:6]
             for a in self.attractors:
@@ -1690,10 +1525,8 @@ class PhysicsEngine:
                       + maths.quat_apply(body_q[:, a["body"]], a["offset"]))[:, None]
                 Ja = (S_lin + _cross(S_ang, pa[:, :, None, :])) * a["mask"][None, None, :, None]
                 att_J.append(Ja)
-                att_pts.append(pa)
                 att_b.append(-pr.baumgarte / h * (pa - a["target"]))
             att_J = jnp.concatenate(att_J, 1)                  # (N, A, nv, 3)
-            att_pts = jnp.concatenate(att_pts, 1)              # (N, A, 3)
             att_b = jnp.concatenate(att_b, 1)                  # (N, A, 3)
             Na, Aa = att_J.shape[0], att_J.shape[1]
             aJ_rows = jnp.swapaxes(att_J, 2, 3).reshape(Na, Aa * 3, self.nv)
@@ -1704,35 +1537,6 @@ class PhysicsEngine:
             lam_att = jnp.zeros(att_b.shape, qd.dtype)
         else:
             att_J = att_HJ = att_W = att_b = lam_att = None
-
-        if use_kernel:
-            # hand the iteration loop to the fused Pallas kernel; everything
-            # above (rows, GEMMs, Delassus diagonals) was computed once here
-            masks = {"c": self._row_masks_np()}
-            kw = {}
-            if self.grabs:
-                masks["g"] = np.stack(
-                    [np.asarray(g["mask"]) for g in self.grabs])
-                kw.update(pts_g=g_pts, b_g=g_b, g_act=g_act, w_g=g_W)
-            if self.attractors:
-                masks["a"] = np.stack(
-                    [np.asarray(a["mask"]) for a in self.attractors])
-                kw.update(pts_a=att_pts, b_a=att_b, w_a=att_W)
-            mu_full = jnp.broadcast_to(mu, phi.shape)
-            qd, lam_k, imp_dof = ck.solve_pallas(
-                self, dk_bl(S), hinv_bl, qd, masks,
-                p, b_n, mu_full, active.astype(qd.dtype), frames_all, w_diag,
-                b_lo, b_hi, act_lo.astype(qd.dtype), act_hi.astype(qd.dtype),
-                **kw)
-            if self.pairs:
-                kg = lam_k.shape[1] - frame.shape[1]
-                lam_pairs_w = jnp.einsum(
-                    "nkcl,nkl->nkc", frame, lam_k[:, kg:])
-                imp_world = (jnp.concatenate([lam_k[:, :kg], lam_pairs_w], 1)
-                             if kg else lam_pairs_w)
-            else:
-                imp_world = lam_k
-            return qd, imp_world, p, imp_dof, None, None
 
         relax = pr.relaxation
 
@@ -1784,21 +1588,20 @@ class PhysicsEngine:
         # Row Jacobians live in the flat (N, C*3, nv) layout so the
         # per-iteration matvecs lower as batched dot_generals — einsum over
         # (npvk, nv) otherwise materializes (N, P, nv, 3) broadcast
-        # intermediates every iteration (the dominant HBM cost of the whole
-        # substep).
+        # intermediates every iteration (the dominant memory traffic of the
+        # whole substep).
         P = R_rows
 
         def flat_rows(x):  # (N, C, nv, 3) -> (N, C*3, nv)
             return jnp.swapaxes(x, 2, 3).reshape(N, -1, nv)
 
         # Optionally store the loop-invariant row matrices bf16 inside the
-        # scan (SimParams.solver_rows_bf16): multiplies are bf16 at DEFAULT
-        # precision either way, accumulation stays f32 via
+        # scan (SimParams.solver_rows_bf16); accumulation stays f32 via
         # preferred_element_type.
         rows_bf16 = pr.solver_rows_bf16
         if rows_bf16 is None:
             # auto: bf16 pays once the (post-compaction) row working set makes
-            # the iteration loop HBM-bound
+            # the iteration loop bound by memory traffic
             rows_bf16 = R_rows * self.nv >= 1024
         row_t = jnp.bfloat16 if rows_bf16 else qd.dtype
 

@@ -1,4 +1,4 @@
-"""On-TPU signed-distance voxel grids.
+"""On-device signed-distance voxel grids.
 
 The native voxelizer (native/sdf_voxelize.cpp) bakes a triangle mesh into a
 dense SDF grid at scene-build time; this module is the hot-path side: batched
@@ -75,8 +75,8 @@ def sample_with_normal(grid: SDFGrid, pts: jax.Array):
     ix, iy, iz = i0[..., 0], i0[..., 1], i0[..., 2]
     # Packed-corner gather: all 8 cell corners contiguous in the minor dim,
     # so each query is ONE 8-wide vectorized gather instead of 8 scattered
-    # scalar gathers (TPU gathers are latency-bound; the scattered form was
-    # ~60% of the factory-tier step).  grid.values is a compile-time
+    # scalar gathers (gathers are latency-bound; the scattered form was
+    # the larger part of the factory-tier step on the previous accelerator).  grid.values is a compile-time
     # constant, so XLA constant-folds the pack once per compilation.
     dx, dy, dz = vals.shape
     pack = jnp.stack(

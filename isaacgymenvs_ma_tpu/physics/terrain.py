@@ -217,15 +217,15 @@ class TerrainGrid(NamedTuple):
         return jnp.minimum(self.heights[x0, y0], self.heights[x0 + 1, y0 + 1])
 
     def local_window(self, cx: jax.Array, cy: jax.Array, size: int):
-        """Per-env local window for TPU-native lookups.
+        """Per-env local window for the step's terrain lookups.
 
-        Batched point gathers from the global grid lower to scalar
-        dynamic-slice loops on TPU (measured 2.84 ms per height_at call on
-        AnymalTerrain @ 4096 envs, 6+ calls per control step).  All of a
-        step's queries are within ~1.5 m of the robot base, so slice one
-        (size, size) patch per env here — once per control step — and
-        resolve every lookup inside the patch with one-hot GEMMs on the MXU
-        (LocalTerrain).  ``size`` must cover the query radius:
+        Batched point gathers from the global grid were slow on the
+        previous accelerator, where they lowered to scalar loops (6+
+        height_at calls per control step).  All of a step's queries are
+        within ~1.5 m of the robot base, so slice one (size, size) patch
+        per env here — once per control step — and resolve every lookup
+        inside the patch with one-hot GEMMs (LocalTerrain).  Not yet
+        re-measured against a native gather on the GPU.  ``size`` must cover the query radius:
         2 * ceil(radius / horizontal_scale) + 4."""
         W, L = self.heights.shape
         s = self.horizontal_scale
@@ -243,7 +243,7 @@ class TerrainGrid(NamedTuple):
 
 
 class LocalTerrain(NamedTuple):
-    """Per-env heightfield window with MXU-friendly lookups.
+    """Per-env heightfield window with GEMM-shaped lookups.
 
     Drop-in for TerrainGrid.height_at/height_min2 over batched (N, P) query
     points that lie inside each env's window (points beyond it clamp to the
@@ -267,7 +267,7 @@ class LocalTerrain(NamedTuple):
 
     def _sep_lookup(self, wx, wy):
         """h[n, p] = sum_{i,j} wx[n,p,i] patch[n,i,j] wy[n,p,j] — two batched
-        GEMM-shaped contractions that ride the MXU."""
+        GEMM-shaped contractions."""
         rows = jnp.einsum("npi,nij->npj", wx, self.patch)
         return jnp.sum(rows * wy, -1)
 

@@ -20,7 +20,7 @@ Dextreme = Allegro in-hand cube reorientation hardened for sim-to-real:
   engine's per-env PhysScales and the noise magnitudes.  The ADR ranges are
   part of the checkpointable env state (``get_env_state``).
 
-TPU redesign: ADR state and per-env sampled parameter rows live in the task
+Batched redesign: ADR state and per-env sampled parameter rows live in the task
 pytree; everything (sampling, boundary bookkeeping, range updates, noise)
 happens inside the jitted step — no host-side queues.
 """
@@ -47,7 +47,7 @@ MAX_ACTION_LATENCY = 8   # action-history depth (policy steps)
 # ADR parameter tree — the full 27-parameter reference tree with the
 # reference's own init ranges / limits / deltas
 # (cfg/task/AllegroHandDextremeADR.yaml:250-422).  Each name is wired to a
-# TPU-native effect: per-dof drive/property scales and limit shifts, per-body
+# batched effect: per-dof drive/property scales and limit shifts, per-body
 # mass/friction/restitution, affine obs/action corruption (a*x + b + c),
 # action latency, cube-pose camera refresh, RNA.  Tasks can override the
 # whole tree via the task config's ``adr`` section.
@@ -87,7 +87,7 @@ DEFAULT_ADR_PARAMS = {
     "cube_pose_refresh_rate": {"init_range": [1.0, 1.0], "limits": [1.0, 6.0],
                                "delta": 0.2},
     # action latency (policy steps held in the action-history ring; the
-    # reference allows up to 60 — the TPU ring is statically sized, so the
+    # reference allows up to 60 — the ring is statically sized, so the
     # effective ceiling is the ring depth)
     "action_delay_prob": {"init_range": [0.0, 0.05], "limits": [0.0, 0.7],
                           "delta": 0.01},

@@ -26,7 +26,7 @@ Parity surface (allegro_kuka_base.py):
   (tolerance_successes_objective :128-158) — the DexPBT objective.
 * random decaying forces on the object (ref :1402-1415) via ``f_ext``.
 
-TPU redesign notes: per-env curriculum/goal state lives in the task pytree;
+Batched redesign notes: per-env curriculum/goal state lives in the task pytree;
 goal resets are masked updates inside ``reset_idx``; the random-size cuboid
 sweep (generate_cuboids.py:38-131) keeps XLA shapes static by expressing the
 per-axis sizes as per-env ``PhysScales.shape`` leaves — the engine scales the
@@ -121,12 +121,12 @@ TASK_CFG = {
         "dt": 0.01667, "substeps": 2, "up_axis": "z",
         "gravity": [0.0, 0.0, -9.81],
         # contact_capacity 16: 34 candidate rows (21 plane + 13 pair), a
-        # grasp + table rest uses well under 16 — deepest-16 compaction
-        # measured +36% on TPU v5e @ 4096 (8.88 -> 6.54 ms/step), and with
-        # the rows compacted contact-row reuse flips from a loss (cached
-        # full-row Jacobians at 34 rows cost more HBM traffic than the
-        # fused rebuild: 17.9 -> 21.0 ms/step @ 8192) to a further win:
-        # 6.54 -> 4.88 ms/step (+82% total over the uncompacted baseline).
+        # grasp + table rest uses well under 16, so deepest-16 compaction
+        # is exact in practice.  Both it and contact-row reuse were chosen
+        # by speed on the previous accelerator (reuse lost without the
+        # compaction: cached full-row Jacobians at 34 rows cost more memory
+        # traffic than the fused rebuild); neither is re-measured on the
+        # GPU yet.
         "physx": {"num_position_iterations": 8, "num_velocity_iterations": 0,
                   "contact_capacity": 16, "reuse_contact_rows": True,
                   "max_depenetration_velocity": 1000.0},

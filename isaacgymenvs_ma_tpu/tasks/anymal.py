@@ -68,7 +68,7 @@ TASK_CFG = {
         "physx": {
             "num_threads": 4, "solver_type": 1, "use_gpu": True,
             "num_position_iterations": 4, "num_velocity_iterations": 1,
-            "contact_capacity": 16,  # 68 candidate rows, 4 feet active (+148% on TPU)
+            "contact_capacity": 16,  # 68 candidate rows, 4 feet active
             "contact_offset": 0.02, "rest_offset": 0.0,
             "bounce_threshold_velocity": 0.2, "max_depenetration_velocity": 100.0,
             "default_buffer_size_multiplier": 5.0,

@@ -501,8 +501,8 @@ class AnymalTerrain(VecTaskBase):
         # Per-env local heightfield window (physics/terrain.py LocalTerrain):
         # the obs sample grid reaches 0.8 m from the base, the legs ~0.7 m,
         # and the base drifts < 2 cm within one control step, so a 1.3 m
-        # radius window covers every lookup; measured 0.058M -> (see
-        # docs/performance.md) env-steps/s on TPU vs global-grid gathers.
+        # radius window covers every lookup (chosen over global-grid
+        # gathers on the previous accelerator; not yet re-measured).
         size = self._terrain_win
         return self.terrain.local_window(sim.q[:, 0], sim.q[:, 1], size)
 

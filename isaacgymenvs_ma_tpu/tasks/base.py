@@ -1,4 +1,4 @@
-"""Vectorized env runtime — the TPU-native ``VecTask`` (L2).
+"""Vectorized env runtime — the batched ``VecTask`` (L2).
 
 Functional re-design of the reference's ``tasks/base/vec_task.py``:
 
@@ -170,8 +170,9 @@ class VecTaskBase:
         """Terrain object used for this control step's physics + obs.
 
         Hook: AnymalTerrain swaps in a per-env LocalTerrain window so the
-        heightfield lookups run as MXU one-hot GEMMs instead of TPU-hostile
-        batched gathers (physics/terrain.py local_window)."""
+        heightfield lookups run as one-hot GEMMs over a small window instead
+        of batched gathers from the global grid (physics/terrain.py
+        local_window)."""
         return self.terrain
 
     def pre_physics(self, state: EnvState, actions: jax.Array) -> Control:

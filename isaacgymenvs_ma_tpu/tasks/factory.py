@@ -23,7 +23,7 @@ Parity surface:
   jacobian IK (replaces the reference's 20-sim-step move), nut/bolt XY
   noise on the table.
 
-TPU redesign: the screw task's nut rides a SCREW joint on the bolt (pitch
+Batched redesign: the screw task's nut rides a SCREW joint on the bolt (pitch
 0.002 m/rev) — the XLA-native replacement for SDF thread-mesh collision
 (docs/factory.md "SDF collisions"); gripper-pad friction on the nut flats
 drives it exactly as on hardware.  The pick task's open-loop close-and-lift
@@ -619,7 +619,7 @@ class FactoryTaskNutBoltPick(FactoryBase):
         origin IS the COM, so the local offset is zero.  Round 3 carried the
         reference's literal offset, planting the grasp target 22.5 mm above
         the nut — the scripted close grabbed air and post-fix lift success
-        was 0.00 (runs_r3/factorypick_c.log)."""
+        was 0.00."""
         nut = out.root_states[:, 2]
         pos = nut[:, 0:3]
         quat = maths.quat_mul(nut[:, 3:7],

@@ -10,7 +10,7 @@ an FSM-staged reward with behavior-stage reward BSR (``compute_franka_reward``
 
 Grasping is modeled with the engine's conditional grab constraints
 (gripper-suction): when an agent is in the holding state, its grip site is
-pinned to its nearest cube — the TPU-native stand-in for PhysX finger-pad
+pinned to its nearest cube — the batched stand-in for PhysX finger-pad
 frictional grasps.
 """
 from __future__ import annotations

@@ -224,7 +224,7 @@ class IndustRealTaskPegsInsert(FactoryBase):
         # override dropped it): without a floor under the hand the policy
         # dives THROUGH the table, drags the grab-held plug into deep
         # socket interpenetration, and freezes the SAPU reward at its
-        # pre-violation value forever (runs_r5/industreal.log: reward
+        # pre-violation value forever (a training run reached reward
         # 2900 with plugs at z=0)
         table = names.index("table_top")
         pairs += [(names.index(pn), table) for pn in names

@@ -12,7 +12,7 @@ a block that must be spun to a goal orientation:
 * position-controlled actuated dofs (20); the four tendon-coupled distal
   joints track their middle joints (PhysX tendon approximation),
 * contacts: fingertip/palm candidate points vs the cube SDF + cube corners
-  vs the palm box — a reduced static contact set sized for TPU memory.
+  vs the palm box — a reduced static contact set sized for device memory.
 """
 from __future__ import annotations
 

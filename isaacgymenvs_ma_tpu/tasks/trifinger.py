@@ -24,7 +24,7 @@ Parity surface:
   (dof_pos_stddev), object "default"/"random" (uniform in arena disc,
   random yaw).
 
-TPU notes: the finger-reach schedule (ref ft_sched_end=5e7) is driven through
+Notes: the finger-reach schedule (ref ft_sched_end=5e7) is driven through
 ``set_train_info`` frames; the visual goal-object actor and the boundary wall
 mesh are not simulated (the arena constraint matters only for fallen cubes,
 which score ~0 reward and time out).

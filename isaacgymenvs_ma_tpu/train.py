@@ -40,9 +40,12 @@ def launch(argv=None):
     from .utils.config import (GLOBAL_DEFAULTS, apply_overrides,
                                load_task_config, load_train_config,
                                resolve_default, print_dict)
-    from .utils.observers import MultiObserver, TensorboardObserver, WandbObserver
+    from .utils.observers import (MultiObserver, TensorboardObserver,
+                                  WandbObserver)
     from .ops.rng import make_seed
+    from .utils.compile_cache import setup_compile_cache
 
+    setup_compile_cache()
     argv = list(sys.argv[1:] if argv is None else argv)
     global_ov, task_ov, train_ov = _split_overrides(argv)
     cfg = apply_overrides(dict(GLOBAL_DEFAULTS), global_ov)
@@ -108,10 +111,10 @@ def launch(argv=None):
     # per-run config snapshot (reference train.py:204-210)
     if jax.process_index() == 0:
         os.makedirs(run_dir, exist_ok=True)
-        import yaml
-        with open(os.path.join(run_dir, "config.yaml"), "w") as f:
-            yaml.safe_dump({"global": cfg, "task": task_cfg,
-                            "train": train_cfg}, f, default_flow_style=False)
+        import json
+        with open(os.path.join(run_dir, "config.json"), "w") as f:
+            json.dump({"global": cfg, "task": task_cfg, "train": train_cfg},
+                      f, indent=1, default=repr)
 
     observers = [TensorboardObserver(os.path.join(run_dir, "summaries"))]
     if cfg.get("wandb_activate") and jax.process_index() == 0:
@@ -131,6 +134,9 @@ def launch(argv=None):
         m = pmesh.make_mesh()
         state = pmesh.shard_batch_pytree(
             state, m, batch_sizes=(task.num_envs, task.rl_games_batch))
+        # the mesh in context lets per-shard kernels (physics/fk_kernel.py)
+        # run under shard_map instead of on the gathered batch
+        jax.sharding.set_mesh(m)
 
     if cfg.get("checkpoint"):
         state, env_extra, meta = ckpt.load_checkpoint(cfg["checkpoint"], state)
@@ -225,8 +231,8 @@ def launch(argv=None):
                 if m.get(sk) is not None:
                     succ += f" {lbl} {m[sk]:.2f}"
             print(f"epoch {ep}/{max_epochs} reward {m['mean_return']:.2f} "
-                  f"len {m['mean_length']:.0f} kl {m['kl']:.4f}{succ} "
-                  f"fps {fps:,.0f}")
+                  f"len {m['mean_length']:.0f} loss {m['loss']:.4f} "
+                  f"kl {m['kl']:.4f}{succ} fps {fps:,.0f}")
             observer.after_print_stats(ep, m)
             if m["mean_return"] >= pcfg.score_to_win:
                 print("score_to_win reached")

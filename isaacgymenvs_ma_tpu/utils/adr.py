@@ -1,7 +1,7 @@
 """Automatic Domain Randomization (reference tasks/dextreme/adr_vec_task.py
 :368-920 — worker modes, boundary performance queues, range updates).
 
-TPU-native redesign: instead of host-side queues and per-env worker-mode
+Batched redesign: instead of host-side queues and per-env worker-mode
 bookkeeping, ADR state is a small pytree updated with masked reductions
 inside the jitted step:
 
@@ -182,7 +182,7 @@ PHYS_PARAM_NAMES = ("mass", "damping", "stiffness", "friction")
 
 
 def phys_adr(num_envs: int, **overrides) -> ADR:
-    """ADR over the engine's multiplicative PhysScales factors (the TPU
+    """ADR over the engine's multiplicative PhysScales factors (the batched
     counterpart of dextreme's per-property adr ranges —
     tasks/dextreme/allegro_hand_dextreme.py custom ranges in task yaml)."""
     cfg = ADRConfig(

@@ -15,8 +15,6 @@ import copy
 import os
 from typing import Any, Dict, List, Optional
 
-import yaml
-
 # mirror of the root config surface (reference cfg/config.yaml)
 GLOBAL_DEFAULTS: Dict[str, Any] = {
     "task_name": "Cartpole",
@@ -25,8 +23,10 @@ GLOBAL_DEFAULTS: Dict[str, Any] = {
     "seed": 42,
     "torch_deterministic": False,  # accepted for CLI parity; XLA is deterministic
     "max_iterations": "",
-    "sim_device": "tpu",
-    "rl_device": "tpu",
+    # accepted for parity with the reference's CLI; JAX places all state on
+    # its default device (or the mesh over every visible device)
+    "sim_device": "cuda:0",
+    "rl_device": "cuda:0",
     "graphics_device_id": 0,
     "pipeline": "gpu",
     "multi_gpu": False,
@@ -59,11 +59,55 @@ def deep_merge(base: dict, override: dict) -> dict:
     return out
 
 
+_SCALARS = {"true": True, "false": False, "null": None, "none": None,
+            "~": None}
+
+
+def _split_top(s: str) -> List[str]:
+    """Split on commas that are not inside brackets or quotes."""
+    parts, depth, quote, cur = [], 0, None, ""
+    for ch in s:
+        if quote:
+            quote = None if ch == quote else quote
+        elif ch in "'\"":
+            quote = ch
+        elif ch in "[{":
+            depth += 1
+        elif ch in "]}":
+            depth -= 1
+        elif ch == "," and depth == 0:
+            parts.append(cur)
+            cur = ""
+            continue
+        cur += ch
+    if cur.strip():
+        parts.append(cur)
+    return parts
+
+
 def _parse_value(s: str) -> Any:
-    try:
-        return yaml.safe_load(s)
-    except yaml.YAMLError:
-        return s
+    """A CLI override value in the YAML flow grammar Hydra accepts: bools,
+    null, ints, floats, quoted strings, ``[a, b]`` lists and ``{k: v}``
+    maps; anything else stays a string."""
+    s = s.strip()
+    if s.lower() in _SCALARS:
+        return _SCALARS[s.lower()]
+    if len(s) >= 2 and s[0] == s[-1] and s[0] in "'\"":
+        return s[1:-1]
+    if s.startswith("[") and s.endswith("]"):
+        return [_parse_value(v) for v in _split_top(s[1:-1])]
+    if s.startswith("{") and s.endswith("}"):
+        out = {}
+        for item in _split_top(s[1:-1]):
+            k, _, v = item.partition(":")
+            out[str(_parse_value(k))] = _parse_value(v)
+        return out
+    for cast in (int, float):
+        try:
+            return cast(s)
+        except ValueError:
+            pass
+    return s
 
 
 def apply_overrides(cfg: dict, overrides: Optional[List[str]]) -> dict:
@@ -90,7 +134,14 @@ def resolve_default(default, value):
 
 
 def load_yaml_if_exists(path: str) -> dict:
+    """A user config file; PyYAML is needed only when one is given."""
     if path and os.path.exists(path):
+        try:
+            import yaml
+        except ImportError as e:
+            raise ImportError(
+                f"reading the config file {path} needs PyYAML "
+                "(pip install pyyaml)") from e
         with open(path) as f:
             return yaml.safe_load(f) or {}
     return {}

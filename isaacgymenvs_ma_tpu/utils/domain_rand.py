@@ -1,5 +1,5 @@
 """Domain randomization engine (reference ``vec_task.py:612-842`` +
-``utils/dr_utils.py``), TPU-native.
+``utils/dr_utils.py``), batched in JAX.
 
 The reference mutates PhysX actor properties through host-side setter maps
 (``dr_utils.py:35-69``), needs value "bucketing" to bound GPU buffer growth

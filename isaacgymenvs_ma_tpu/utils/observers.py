@@ -25,14 +25,25 @@ class AlgoObserver:
 
 
 class TensorboardObserver(AlgoObserver):
-    """Writes Episode/* and losses/* scalars (rlgames_utils.py:149-209)."""
+    """Writes Episode/* and losses/* scalars (rlgames_utils.py:149-209).
+
+    tensorboardX is optional: without it the observer says so once and
+    records nothing."""
 
     def __init__(self, logdir: str):
-        from tensorboardX import SummaryWriter
+        try:
+            from tensorboardX import SummaryWriter
+        except ImportError:
+            print("[observers] tensorboardX not installed; "
+                  "TensorBoard summaries disabled")
+            self.writer = None
+            return
         os.makedirs(logdir, exist_ok=True)
         self.writer = SummaryWriter(logdir)
 
     def after_print_stats(self, epoch, metrics):
+        if self.writer is None:
+            return
         frames = int(metrics.get("frames", epoch))
         for k, v in metrics.items():
             if k == "frames":

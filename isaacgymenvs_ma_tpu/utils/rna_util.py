@@ -2,30 +2,33 @@
 
 Dextreme's action-perturbation adversary: a fixed random MLP with softmax-
 binned outputs and periodically refreshed dropout masks produces structured
-adversarial action noise.  Functional flax version: parameters are sampled
+adversarial action noise.  Parameters are sampled
 once (never trained); dropout masks live in the carry and refresh on demand.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import NamedTuple
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
+from ..learning import nn
 
+
+@dataclass(frozen=True)
 class _RNANet(nn.Module):
     num_actions: int
     num_bins: int = 32
     units: tuple = (512, 512)
 
-    @nn.compact
-    def __call__(self, obs, masks):
+    def __call__(self, scope, obs, masks):
         x = obs
         for i, u in enumerate(self.units):
-            x = nn.Dense(u, name=f"fc{i}")(x)
-            x = nn.relu(x) * masks[i]  # dropout-style random gating
-        logits = nn.Dense(self.num_actions * self.num_bins, name="out")(x)
+            x = nn.dense(scope.child(f"fc{i}"), x, u)
+            x = jax.nn.relu(x) * masks[i]  # dropout-style random gating
+        logits = nn.dense(scope.child("out"), x,
+                          self.num_actions * self.num_bins)
         logits = logits.reshape(obs.shape[0], self.num_actions, self.num_bins)
         # softmax-binned continuous outputs in [-1, 1] (ref :118-139)
         bins = jnp.linspace(-1.0, 1.0, self.num_bins)

@@ -20,7 +20,7 @@ def set_seed(seed: int, torch_deterministic: bool = False, rank: int = 0) -> int
     """Global seeding with per-rank offset (ref :87-115).
 
     Returns the resolved seed; JAX PRNG keys should be derived from it with
-    ``jax.random.PRNGKey`` (ops/rng.py) — determinism on TPU comes from key
+    ``jax.random.PRNGKey`` (ops/rng.py) — determinism comes from key
     threading, not global generator state.
     """
     from ..ops.rng import make_seed

@@ -4,8 +4,8 @@ capture, frame recording to PNG).
 
 The reference renders through the isaacgym viewer + a virtual X display.
 Here a small pure-numpy splat rasterizer draws the scene's collision geoms
-from the engine's pose readouts — no GL, no display, runs in any TPU pod
-job.  Not a photorealistic renderer: it is the debug/monitoring surface the
+from the engine's pose readouts — no GL, no display, runs in any headless
+cluster job.  Not a photorealistic renderer: it is the debug/monitoring surface the
 reference's `virtual_screen_capture` path provides (env videos for wandb,
 docs/framework.md "Recording videos").
 
@@ -237,7 +237,7 @@ class InteractiveViewer:
     env's root each draw (``viewer_camera_look_at`` analog).
 
     The window is a matplotlib figure so it runs anywhere a display (or
-    X-forwarding) exists; on a headless TPU pod matplotlib's Agg backend
+    X-forwarding) exists; on a headless node matplotlib's Agg backend
     has no window, so construction raises unless ``headless_ok`` — the same
     loud failure the reference gives without an X server (camera_props path
     :266-268).  The draw path reuses the splat rasterizer, so what you see

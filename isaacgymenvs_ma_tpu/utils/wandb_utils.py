@@ -23,7 +23,7 @@ class WandbAlgoObserver(AlgoObserver):
     def before_init(self, base_name: str, config: dict,
                     experiment_name: str):
         self._inner = WandbObserver(
-            project=self.cfg.get("wandb_project", "isaacgymenvs-ma-tpu"),
+            project=self.cfg.get("wandb_project", "isaacgymenvs_ma_tpu"),
             group=self.cfg.get("wandb_group", ""),
             name=experiment_name,
             entity=self.cfg.get("wandb_entity", ""),

@@ -1,4 +1,4 @@
-"""Multi-task TPU throughput suite.
+"""Multi-task throughput suite.
 
 Measures env-steps/s for one task family per tier of the reference's
 benchmark ladder (SURVEY.md Appendix A / BASELINE.md), each at its
@@ -6,7 +6,7 @@ reference-default env count, under the same policy-coupled scan harness as
 bench.py (actions = tanh(obs @ W) so the loop stays data-dependent).
 
 Usage: python scripts/bench_suite.py [task ...]
-Prints one line per task; results are recorded in docs/performance.md.
+Prints one line per task.
 """
 import sys
 import time

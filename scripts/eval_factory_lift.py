@@ -5,7 +5,7 @@ The reference only scores lift success AFTER a scripted close-and-lift
 epilogue on the final episode step (factory_task_nut_bolt_pick.py:144-203:
 ``_close_gripper`` + ``_lift_gripper`` run in pre-physics of the last step,
 then ``_check_lift_success(height_multiple=3.0)``).  The training metric in
-``runs_r3/factorypick.log`` instead reported the RAW nut height with no
+an earlier training log instead reported the RAW nut height with no
 epilogue — i.e. "did the policy lift the nut unassisted", a strictly harder
 (and differently-defined) statistic that the keypoint-only reward
 (success_bonus 0.0, FactoryTaskNutBoltPick.yaml:52) never incentivizes.
@@ -19,7 +19,7 @@ Usage:  JAX_PLATFORMS=cpu python scripts/eval_factory_lift.py <ckpt> [seed]
 import os
 import sys
 
-os.environ.setdefault("JAX_PLATFORMS", "cpu")  # leave the TPU to training
+os.environ.setdefault("JAX_PLATFORMS", "cpu")  # leave the GPU to training
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 

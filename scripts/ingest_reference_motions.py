@@ -21,7 +21,7 @@ import sys
 
 import jax
 
-jax.config.update("jax_platforms", "cpu")  # MotionLib check; never the TPU
+jax.config.update("jax_platforms", "cpu")  # MotionLib check; never the GPU
 
 import numpy as np
 

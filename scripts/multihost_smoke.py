@@ -2,7 +2,7 @@
 
 The reference scales multi-GPU with one torch process per device and NCCL
 all-reduce inside rl_games DDP (README:165-172, ``utils/rlgames_utils.py:
-89-107``).  Our TPU design is one SPMD program over a global mesh; multi-host
+89-107``).  Our design is one SPMD program over a global mesh; multi-host
 just means every host calls ``jax.distributed.initialize`` and owns a slice
 of the env axis (SURVEY.md §2.6/§5-comm).  Single-process tests can only
 exercise the virtual 8-device mesh; THIS script validates the actual
@@ -39,9 +39,9 @@ def _free_port() -> int:
 
 def worker(rank: int, nprocs: int, port: int, devs_per_proc: int) -> None:
     import jax
-    # the env var alone is not enough here: distributed initialization probes
-    # platform plugins before the first backend touch, and an attached TPU
-    # plugin wins over JAX_PLATFORMS — pin the platform through the config
+    # distributed initialization probes platform plugins before the first
+    # backend touch; pin the CPU platform through the config so an attached
+    # GPU is left alone
     jax.config.update("jax_platforms", "cpu")
     jax.distributed.initialize(
         coordinator_address=f"localhost:{port}",

@@ -1,5 +1,5 @@
 """Contact-path optimizations: active-set compaction, ground-candidate
-pruning, and local terrain windows (docs/performance.md)."""
+pruning, and local terrain windows."""
 import jax
 import jax.numpy as jnp
 import numpy as np

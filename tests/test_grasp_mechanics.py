@@ -2,7 +2,7 @@
 tunneling), direction-aware mass splitting, and the hand-family training
 mechanics (resetTime clock, random object forces, action smoothing).
 
-Motivated by the Factory pick forensics (runs_r3/factorypick_c.log succ 0.00):
+Motivated by the Factory pick forensics (training lift success 0.00):
 fingerpads tunneled through the 3.5 mm hex-nut wall because contact rows only
 activated AFTER penetration, and the per-body mass-splitting count throttled
 the squeeze impulse by the orthogonal table-resting cloud.

@@ -154,8 +154,8 @@ def test_slide_joint():
 
 
 def test_sweep_inverse_matches_linalg():
-    """The batch-lane Gauss-Jordan sweep (TPU Pallas kernel body) is an exact
-    SPD inverse; the Schur-block fallback must agree too."""
+    """The batch-last Gauss-Jordan sweep is an exact SPD inverse, and
+    spd_inverse (the sweep behind a batch-last transpose) agrees."""
     import jax
     import jax.numpy as jnp
     from isaacgymenvs_ma_tpu.physics.engine import (

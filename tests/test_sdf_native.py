@@ -1,4 +1,4 @@
-"""Native SDF voxelizer + on-TPU grid sampling + engine SDF-grid contacts.
+"""Native SDF voxelizer + on-device grid sampling + engine SDF-grid contacts.
 
 Replaces the reference's mesh-distance stack (PhysX SDF collisions
 docs/factory.md, Warp SAPU queries industreal_algo_utils.py:49-157, pysdf

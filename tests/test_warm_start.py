@@ -1,10 +1,10 @@
 """Contact warm starting (SimParams.warm_start — the PhysX
 persistent-contact warm-start analog, SimState.lam carry).
 
-Measured on TPU this LOSES on Ant (docs/performance.md: the lam carry +
-up-front seeding matvecs cost more than the iterations they save, and
-aggressive iteration cuts inject energy), so it ships default-off; these
-tests pin the semantics of the flag-gated path."""
+On the previous accelerator it lost on Ant (the lam carry + up-front
+seeding matvecs cost more than the iterations they save, and aggressive
+iteration cuts inject energy), so it ships default-off; these tests pin the
+semantics of the flag-gated path."""
 import jax
 import jax.numpy as jnp
 import numpy as np
